@@ -51,6 +51,12 @@ def _map_count() -> int:
         return _MAP_CLEAR_THRESHOLD + 1
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (toyni_tpu_torch kernels); skips without one"
+    )
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _clear_jax_caches_between_modules():
     """Drop compiled executables between modules WHEN the process's memory-
